@@ -1,10 +1,11 @@
 """End-to-end inverse-rendering demo (BASELINE config #5).
 
-Renders a high-spp target of a reference scene, perturbs the Gaussian
-parameters, fits them back with the autodiff optimizer, reports PSNR
-before/after, and writes a turntable GIF of the fitted scene.
+Renders a high-spp target of a scene (default: a generated scene of
+``--n`` Gaussians), perturbs the Gaussian parameters, fits them back with
+the autodiff optimizer, reports PSNR before/after, and writes a turntable
+GIF of the fitted scene.
 
-    python scripts/fit_demo.py [--scene .../2g_altered.txt] [--iters 300]
+    python scripts/fit_demo.py [--scene FILE | --n 50] [--iters 300]
 """
 
 import os, sys
@@ -20,12 +21,14 @@ import numpy as np
 
 
 def main():
-    from gvr_tpu.utils.compile_cache import enable as _cc
+    from gvr.utils.compile_cache import enable as _cc
     _cc()
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene",
-                    default="/root/reference/scenes/gaussians/2g_altered.txt")
+    ap.add_argument("--scene", default="",
+                    help="scene file (default: generated, see --n)")
+    ap.add_argument("--n", type=int, default=50,
+                    help="Gaussians of the generated scene")
     ap.add_argument("--iters", type=int, default=300)
     ap.add_argument("--size", type=int, default=128)
     ap.add_argument("--spp", type=int, default=64)
@@ -47,7 +50,7 @@ def main():
                          "scaling lever; overflow fraction is logged)")
     ap.add_argument("--batch", type=int, default=4096,
                     help="pixels per optimizer step")
-    ap.add_argument("--out", default="/tmp/fit_demo")
+    ap.add_argument("--out", default="chiprun_out/fit_demo")
     ap.add_argument("--gif", action="store_true")
     ap.add_argument("--interrupt-at", dest="interrupt_at", type=int,
                     default=0,
@@ -58,17 +61,23 @@ def main():
     args = ap.parse_args()
 
     import jax.numpy as jnp
-    from gvr_tpu.scene.scene import load_gmm
-    from gvr_tpu.scene.gaussians import GaussianMixture
-    from gvr_tpu.cameras import PinholeCamera
-    from gvr_tpu.config import RenderConfig, FitConfig
-    from gvr_tpu.integrators.multiscatter import render_multiscatter
-    from gvr_tpu.inverse.fit import fit_gaussians
-    from gvr_tpu.io.ppm import write_ppm
-    from gvr_tpu.utils.image import psnr
+    from gvr.scene.scene import load_gmm
+    from gvr.scene.gaussians import GaussianMixture
+    from gvr.cameras import PinholeCamera
+    from gvr.config import RenderConfig, FitConfig
+    from gvr.integrators.multiscatter import render_multiscatter
+    from gvr.inverse.fit import fit_gaussians
+    from gvr.io.ppm import write_ppm
+    from gvr.utils.image import psnr
 
     os.makedirs(args.out, exist_ok=True)
-    scene_true = load_gmm(args.scene)
+    if args.scene:
+        scene_true = load_gmm(args.scene)
+    else:
+        from gvr.scene.scene import parse_gmm
+        from gvr.scene.generators import random_gaussian_scene
+        scene_true = parse_gmm(random_gaussian_scene(
+            args.n, seed=0, diameter=(0.1, 0.4)))
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
     rc = RenderConfig(width=args.size, height=args.size,
                       spp=args.eval_spp or 4 * args.spp)
@@ -139,7 +148,7 @@ def main():
     print(f"final PSNR vs target: {psnr1:.2f} dB (was {psnr0:.2f})")
 
     if args.gif:
-        from gvr_tpu.io.turntable import render_turntable
+        from gvr.io.turntable import render_turntable
         render_turntable(
             fitted, f"{args.out}/turntable.gif",
             RenderConfig(width=args.size, height=args.size, env_samples=8),

@@ -5,10 +5,10 @@ import math
 
 import numpy as np
 
-from gvr_tpu.scene.scene import parse_gmm
-from gvr_tpu.cameras import PinholeCamera
-from gvr_tpu.config import RenderConfig
-from gvr_tpu.inverse.attribution import pixel_gaussians, gaussian_pixel_counts
+from gvr.scene.scene import parse_gmm
+from gvr.cameras import PinholeCamera
+from gvr.config import RenderConfig
+from gvr.inverse.attribution import pixel_gaussians, gaussian_pixel_counts
 
 CAM = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
 
@@ -43,7 +43,7 @@ def test_multibounce_attribution_reaches_hidden_gaussian():
     but reachable by scattered (secondary-bounce) rays; the multi-bounce
     path recording (integrator.h:616-644) must include it, the primary-ray
     footprint must not."""
-    from gvr_tpu.inverse.attribution import pixel_gaussians_paths
+    from gvr.inverse.attribution import pixel_gaussians_paths
 
     # 0: dense gaussian in front of the camera (almost every path scatters)
     # 1: fat gaussian behind the camera (z=9 > camera z=6; rays go -z)

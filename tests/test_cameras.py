@@ -6,7 +6,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from gvr_tpu.cameras import PinholeCamera, OrthographicCamera, pixel_center_uv
+from gvr.cameras import PinholeCamera, OrthographicCamera, pixel_center_uv
 
 
 def oracle_frame(pos, lookat):

@@ -7,21 +7,29 @@ import sys
 import numpy as np
 import pytest
 
-from gvr_tpu.io.ppm import read_ppm
+from gvr.io.ppm import read_ppm
 
-SCENE = "/root/reference/scenes/gaussians/1_gaussian.txt"
-ENV = {**os.environ, "PYTHONPATH": "/root/repo", "JAX_PLATFORMS": "cpu"}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu",
+       "PYTHONPATH": os.pathsep.join(
+           [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+               os.pathsep) if p])}
+
+
+@pytest.fixture
+def scene(scene_files):
+    return scene_files["1_gaussian.txt"]
 
 
 def _run(args, timeout=300):
-    return subprocess.run([sys.executable, "-m", "gvr_tpu.cli", *args],
+    return subprocess.run([sys.executable, "-m", "gvr.cli", *args],
                           capture_output=True, text=True, timeout=timeout,
-                          env=ENV, cwd="/root/repo")
+                          env=ENV, cwd=ROOT)
 
 
-def test_cli_render_multiscatter(tmp_path):
+def test_cli_render_multiscatter(tmp_path, scene):
     out = str(tmp_path / "o.ppm")
-    r = _run(["render", SCENE, "-o", out, "--width", "32", "--height", "32",
+    r = _run(["render", scene, "-o", out, "--width", "32", "--height", "32",
               "--spp", "4"])
     assert r.returncode == 0, r.stderr[-800:]
     img = read_ppm(out)
@@ -29,9 +37,9 @@ def test_cli_render_multiscatter(tmp_path):
     assert "Render time" in r.stdout
 
 
-def test_cli_render_hitmask(tmp_path):
+def test_cli_render_hitmask(tmp_path, scene):
     out = str(tmp_path / "h.ppm")
-    r = _run(["render", SCENE, "-o", out, "--width", "16", "--height", "16",
+    r = _run(["render", scene, "-o", out, "--width", "16", "--height", "16",
               "--integrator", "hitmask", "--spp", "1"])
     assert r.returncode == 0, r.stderr[-800:]
     img = read_ppm(out)
@@ -39,25 +47,25 @@ def test_cli_render_hitmask(tmp_path):
     np.testing.assert_allclose(img[8, 8], [1.0, 0.0, 1.0], atol=0.01)
 
 
-def test_cli_animate(tmp_path):
+def test_cli_animate(tmp_path, scene):
     out = str(tmp_path / "a.gif")
-    r = _run(["animate", SCENE, "-o", out, "--width", "24", "--height", "24",
+    r = _run(["animate", scene, "-o", out, "--width", "24", "--height", "24",
               "--frames", "2", "--env-samples", "1"], timeout=400)
     assert r.returncode == 0, r.stderr[-800:]
     raw = open(out, "rb").read()
     assert raw.startswith(b"GIF89a") and raw.endswith(b"\x3b")
 
 
-def test_cli_fit(tmp_path):
+def test_cli_fit(tmp_path, scene):
     """The USE_INVERSE_OPT driver surface (tests/main.cpp:54-75): render a
     tiny target with the CLI, then fit against it end-to-end — arg wiring,
     FitConfig, snapshots, checkpoint, and the final render must all land."""
     tgt = str(tmp_path / "t.ppm")
-    r = _run(["render", SCENE, "-o", tgt, "--width", "16", "--height", "16",
+    r = _run(["render", scene, "-o", tgt, "--width", "16", "--height", "16",
               "--spp", "4"])
     assert r.returncode == 0, r.stderr[-800:]
     out = str(tmp_path / "fit")
-    r = _run(["fit", SCENE, "--target", tgt, "-o", out, "--iters", "2",
+    r = _run(["fit", scene, "--target", tgt, "-o", out, "--iters", "2",
               "--spp", "2", "--batch-pixels", "64", "--bounces", "2",
               "--final-spp", "2", "--save-every", "1", "--snapshots"],
              timeout=580)

@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvr_tpu.cameras import PinholeCamera
-from gvr_tpu.config import RenderConfig, Solver
-from gvr_tpu.integrators.multiscatter import multiscatter_radiance
-from gvr_tpu.inverse.fit import _pixel_rays
-from gvr_tpu.parallel.gauss_sharded import (
+from gvr.cameras import PinholeCamera
+from gvr.config import RenderConfig, Solver
+from gvr.integrators.multiscatter import multiscatter_radiance
+from gvr.inverse.fit import _pixel_rays
+from gvr.parallel.gauss_sharded import (
     GAUSS_AXIS, make_mesh_2d, pad_mixture, render_rays_tp)
-from gvr_tpu.scene.generators import random_gaussian_scene
-from gvr_tpu.scene.scene import parse_gmm
+from gvr.scene.generators import random_gaussian_scene
+from gvr.scene.scene import parse_gmm
 
 CAM = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
 
@@ -53,7 +53,7 @@ def test_tau_reductions_match_under_gauss_axis(scene40):
     tau_up_to, sigma_t, far_bound against their single-device values."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    from gvr_tpu.ops.transmittance import (
+    from gvr.ops.transmittance import (
         tau_coeffs, tau_total, tau_up_to, sigma_t_at, far_bound,
         gaussian_axis)
 
@@ -73,7 +73,7 @@ def test_tau_reductions_match_under_gauss_axis(scene40):
                    out_specs=(P(), P(), P(), P()), check_vma=False)
     got = fn(gmm, o, d)
 
-    from gvr_tpu.ops.transmittance import tau_coeffs as tc
+    from gvr.ops.transmittance import tau_coeffs as tc
     rg = tc(gmm, o, d)
     t = jnp.full(o.shape[:1], 5.0)
     want = (tau_total(rg), tau_up_to(rg, t), sigma_t_at(rg, t),
@@ -119,8 +119,8 @@ def test_tp_fit_gradients_match_dense():
     the params sharded over the gauss axis must match the unsharded
     fit_loss value_and_grad (the implicit-diff VJP transposes the tau
     collectives back to per-shard cotangents)."""
-    from gvr_tpu.inverse.fit import fit_loss
-    from gvr_tpu.parallel.gauss_sharded import fit_value_and_grad_tp
+    from gvr.inverse.fit import fit_loss
+    from gvr.parallel.gauss_sharded import fit_value_and_grad_tp
 
     scene = parse_gmm(random_gaussian_scene(8, seed=3))
     params = scene.medium.pack_parameters()
@@ -147,8 +147,8 @@ def test_tp_fit_adam_trajectory_matches_dense():
     owns its slice of the mixture AND its optimizer state — Adam is
     elementwise, so no extra collective) track the dense trajectory."""
     import optax
-    from gvr_tpu.inverse.fit import fit_loss
-    from gvr_tpu.parallel.gauss_sharded import fit_value_and_grad_tp
+    from gvr.inverse.fit import fit_loss
+    from gvr.parallel.gauss_sharded import fit_value_and_grad_tp
 
     scene = parse_gmm(random_gaussian_scene(8, seed=3))
     o, d, ids = _rays(8, 8)
@@ -194,9 +194,9 @@ def test_tp_fit_adam_trajectory_matches_dense():
 def test_tp_image_render_matches_sample_loop(scene40):
     """Image-level TP wrapper == the manual per-sample estimator (same
     RNG keying, same stratified jitter), up to reduction-order drift."""
-    from gvr_tpu.integrators.multiscatter import (
+    from gvr.integrators.multiscatter import (
         mc_camera_rays, multiscatter_radiance)
-    from gvr_tpu.parallel.gauss_sharded import render_multiscatter_tp
+    from gvr.parallel.gauss_sharded import render_multiscatter_tp
 
     cfg = RenderConfig(width=12, height=12, spp=2, max_bounces=3)
     ids = jnp.arange(144, dtype=jnp.int32)

@@ -8,9 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvr_tpu.scene.gaussians import GaussianMixture
-from gvr_tpu.ops.quadratics import ray_quadratics, intersect_gaussians
-from gvr_tpu.ops.transmittance import (
+from gvr.scene.gaussians import GaussianMixture
+from gvr.ops.quadratics import ray_quadratics, intersect_gaussians
+from gvr.ops.transmittance import (
     tau_coeffs, tau_up_to, transmittance_up_to, sigma_t_at, far_bound)
 
 from oracle import OracleMixture
@@ -155,7 +155,7 @@ def test_param_codec_roundtrip(rng):
 
 
 def test_rodrigues_roundtrip(rng):
-    from gvr_tpu.scene.gaussians import (rodrigues_to_rotation,
+    from gvr.scene.gaussians import (rodrigues_to_rotation,
                                          rotation_to_rodrigues)
     rod = rng.uniform(-2.5, 2.5, (40, 3)).astype(np.float32)
     r = rodrigues_to_rotation(jnp.asarray(rod))

@@ -26,16 +26,16 @@ import math
 
 import numpy as np
 
-from gvr_tpu.scene.scene import load_gmm
-from gvr_tpu.cameras import PinholeCamera
-from gvr_tpu.config import RenderConfig, Solver
-from gvr_tpu.integrators.raymarch import (render_raymarch_gaussians,
+from gvr.scene.scene import load_gmm
+from gvr.cameras import PinholeCamera
+from gvr.config import RenderConfig, Solver
+from gvr.integrators.raymarch import (render_raymarch_gaussians,
                                           render_raymarch_spheres)
-from gvr_tpu.integrators.freeflight import render_single_scatter
-from gvr_tpu.integrators.multiscatter import render_multiscatter
-from gvr_tpu.io.mitsuba import load_mitsuba
-from gvr_tpu.io.ppm import read_ppm, quantize
-from gvr_tpu.utils.image import psnr
+from gvr.integrators.freeflight import render_single_scatter
+from gvr.integrators.multiscatter import render_multiscatter
+from gvr.io.mitsuba import load_mitsuba
+from gvr.io.ppm import read_ppm, quantize
+from gvr.utils.image import psnr
 
 RES = 128  # goldens are 512; compare against box-downsampled
 
@@ -82,7 +82,7 @@ def test_gaussian_marcher_vs_baseline_7(ref_paths):
 
 def test_sphere_marcher_vs_env_test_orthographic(ref_paths):
     scene, camera, w, h = load_mitsuba(
-        "/root/reference/tests/env_one_sphere_test_ortho.xml")
+        f"{ref_paths['root']}/tests/env_one_sphere_test_ortho.xml")
     cfg = RenderConfig(width=RES, height=RES, env_samples=4)
     img = render_raymarch_spheres(scene, camera, cfg)
     p = psnr(np.clip(img, 0, 1),

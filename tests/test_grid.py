@@ -14,16 +14,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gvr_tpu.scene.scene import parse_gmm
-from gvr_tpu.scene.generators import random_gaussian_scene
-from gvr_tpu.accel.grid import build_grid, dda_crossings, pad_sort_items, H
-from gvr_tpu.integrators.gridscatter import (
+from gvr.scene.scene import parse_gmm
+from gvr.scene.generators import random_gaussian_scene
+from gvr.accel.grid import build_grid, dda_crossings, H
+from gvr.integrators.gridscatter import (
     grid_tau_crossings, grid_transmittance, grid_free_flight,
     wavefront_pixels_grid)
-from gvr_tpu.ops.transmittance import tau_coeffs, tau_total, \
+from gvr.ops.transmittance import tau_coeffs, tau_total, \
     transmittance_up_to, albedo_at_from_rg
-from gvr_tpu.ops.solvers import sample_free_flight
-from gvr_tpu.config import RenderConfig, Solver
+from gvr.ops.solvers import sample_free_flight
+from gvr.config import RenderConfig, Solver
 
 
 @pytest.fixture(scope="module")
@@ -94,40 +94,29 @@ def test_dda_crossings_cells_are_unique_per_ray(grid, rays):
         assert np.unique(v).size == v.size
 
 
-def test_worklist_blocks_are_single_cell(grid, rays):
-    o, d = rays
-    cells, _, _ = dda_crossings(grid, o, d)
-    flat = cells.reshape(-1)
-    # marker i+1 identifies item i; dummies carry payload 0
-    marker = jnp.arange(1, flat.shape[0] + 1, dtype=jnp.float32)
-    pay_f, block_cell, unsort = pad_sort_items(grid, flat, [marker])
-    sorted_marker = np.asarray(pay_f[0]).astype(np.int64)
-    block_cell = np.asarray(block_cell)
-    flat_np = np.asarray(flat)
-
-    # round trip: unsorting the carried marker restores item order
-    back = np.asarray(unsort(pay_f[0]))
-    np.testing.assert_array_equal(back, np.asarray(marker))
-
-    # every valid item lands in exactly one block, and that block's cell is
-    # the item's cell
-    seen = np.zeros(flat_np.size, bool)
-    for b in range(sorted_marker.size // 128):
-        items = sorted_marker[b * 128:(b + 1) * 128]
-        items = items[items > 0] - 1
-        if block_cell[b] < 0:
-            assert all(flat_np[i] < 0 for i in items)
-            continue
-        for i in items:
-            assert flat_np[i] == block_cell[b]
-            assert not seen[i]
-            seen[i] = True
-    assert seen[flat_np >= 0].all()
+def test_cell_runs_are_slice_aligned(scene, grid):
+    """Each cell's entries fill whole slices from cell_sfirst on: the grid
+    passes gather a cell's slices by index, so a run must start on a slice
+    boundary, hold exactly cell_gcnt real entries of that cell, and pad
+    the rest of its last slice with zero-density entries."""
+    tab = np.asarray(grid.table)
+    first = np.asarray(grid.cell_sfirst)
+    span = np.asarray(grid.cell_sspan)
+    cnt = np.asarray(grid.cell_gcnt)
+    assert (span == (cnt + H - 1) // H).all()
+    assert span.max() == grid.s_cap
+    for c in np.nonzero(cnt)[0]:
+        run = tab[first[c]:first[c] + span[c]].reshape(-1, 16)
+        real = run[:cnt[c]]
+        assert (real[:, 12] > 0).all() and (real[:, 9] == c).all()
+        assert (run[cnt[c]:, 10] == 0).all() and (run[cnt[c]:, 12] == 0).all()
+    assert (tab[-1, :, 12] == 0).all()          # trailing benign slice
+    assert cnt.sum() == grid.n_entries
 
 
 def test_grid_tau_matches_dense(scene, grid, rays):
     o, d = rays
-    tau, cells, _, _ = grid_tau_crossings(grid, o, d, None, True)
+    tau, cells, _, _ = grid_tau_crossings(grid, o, d, None)
     total = np.asarray(jnp.sum(tau, axis=-1))
     rg = tau_coeffs(scene.medium, o, d)
     dense = np.asarray(tau_total(rg))
@@ -137,7 +126,7 @@ def test_grid_tau_matches_dense(scene, grid, rays):
 def test_grid_transmittance_matches_dense(scene, grid, rays):
     o, d = rays
     tmax = jnp.linspace(0.3, 6.0, o.shape[0])
-    tr = np.asarray(grid_transmittance(grid, o, d, tmax, True))
+    tr = np.asarray(grid_transmittance(grid, o, d, tmax))
     ref = np.asarray(transmittance_up_to(scene.medium, o, d, tmax))
     np.testing.assert_allclose(tr, ref, rtol=2e-3, atol=2e-5)
 
@@ -147,7 +136,7 @@ def test_grid_free_flight_matches_dense_root(scene, grid, rays):
     u = jnp.asarray(np.random.default_rng(11).uniform(0.01, 0.99,
                                                       o.shape[0]),
                     jnp.float32)
-    t_g, sc_g, alb_g, tau_tot = grid_free_flight(grid, o, d, u, 16, True)
+    t_g, sc_g, alb_g, tau_tot = grid_free_flight(grid, o, d, u, 16)
     rg = tau_coeffs(scene.medium, o, d)
     target = -jnp.log(jnp.maximum(1.0 - u, 1e-12))
     t_d, sc_d = sample_free_flight(rg, target, Solver.NEWTON, 24)
@@ -173,7 +162,7 @@ def test_grid_free_flight_u_tau_zero_scatters_with_albedo(scene, grid,
     the dense engine scatters at the medium entry and continues."""
     o, d = rays
     u = jnp.zeros(o.shape[0], jnp.float32)
-    t_g, sc_g, alb_g, tau_tot = grid_free_flight(grid, o, d, u, 16, True)
+    t_g, sc_g, alb_g, tau_tot = grid_free_flight(grid, o, d, u, 16)
     sc = np.asarray(sc_g) & (np.asarray(tau_tot) > 1e-6)
     assert sc.any()
     assert (np.asarray(alb_g)[sc] > 0.0).all()
@@ -183,8 +172,8 @@ def test_grid_free_flight_u_tau_zero_scatters_with_albedo(scene, grid,
 def test_grid_wavefront_matches_xla_engine(scene, grid):
     """Full-engine equivalence: same RNG streams, same estimator — images
     agree in the mean (per-pixel diffs are chaotic MC divergence)."""
-    from gvr_tpu.cameras import PinholeCamera
-    from gvr_tpu.integrators.multiscatter import wavefront_pixels
+    from gvr.cameras import PinholeCamera
+    from gvr.integrators.multiscatter import wavefront_pixels
 
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
     cfg = RenderConfig(width=24, height=24, spp=4, pallas="off",
@@ -209,8 +198,8 @@ def test_grid_pooled_wavefront_matches_per_lane(scene, grid):
     grouping changes (per-sample slots summed in fixed order vs one
     running per-lane sum), so agreement is ulp-level, not just in the
     mean."""
-    from gvr_tpu.cameras import PinholeCamera
-    from gvr_tpu.integrators.gridscatter import wavefront_pixels_grid_pooled
+    from gvr.cameras import PinholeCamera
+    from gvr.integrators.gridscatter import wavefront_pixels_grid_pooled
 
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
     cfg = RenderConfig(width=16, height=16, spp=4, pallas="interpret",
@@ -228,8 +217,8 @@ def test_grid_pooled_is_chunk_invariant(scene, grid):
     """Pooled per-pixel radiance must not depend on how pixels are
     batched into chunks (the pool is chunk-local, but each sample's
     slot sum is in fixed order)."""
-    from gvr_tpu.cameras import PinholeCamera
-    from gvr_tpu.integrators.multiscatter import render_multiscatter
+    from gvr.cameras import PinholeCamera
+    from gvr.integrators.multiscatter import render_multiscatter
 
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
     cfg = RenderConfig(width=16, height=16, spp=4, pallas="interpret",
@@ -244,8 +233,8 @@ def test_grid_cache_key_is_content_hash():
     """Sum-preserving scene edits (swap a gaussian's x/y position) must
     invalidate the grid cache (round-2 advisor finding: the old key was a
     float-sum hash and collided on exactly this edit)."""
-    from gvr_tpu.integrators.gridscatter import grid_for
-    from gvr_tpu.scene.gaussians import GaussianMixture
+    from gvr.integrators.gridscatter import grid_for
+    from gvr.scene.gaussians import GaussianMixture
 
     txt = random_gaussian_scene(20, seed=5, diameter=(0.1, 0.5))
     gmm = parse_gmm(txt).medium
@@ -259,68 +248,63 @@ def test_grid_cache_key_is_content_hash():
     assert not np.array_equal(np.asarray(g1.table), np.asarray(g2.table))
 
 
-def _exact_span_max(gmm):
-    """(side, max solve-view span) over the FULL scene at the cost-model's
-    chosen side — the exact quantity grid_for compares against S_CAP_MAX."""
-    from gvr_tpu.accel.grid import choose_side, _bin_gaussians, _tight_mask
-    bmin, bmax = (np.asarray(a, np.float64) for a in gmm.aabbs())
-    lo = bmin.min(0) - 1e-4
-    hi = bmax.max(0) + 1e-4
-    ic6 = np.asarray(gmm.icpack(), np.float64)
-    mean = np.asarray(gmm.mean, np.float64)
-    side = choose_side(bmin, bmax, lo, hi, ic6, mean)
-
-    cell = (hi - lo) / side
-    i0 = np.clip(((bmin - lo) / cell).astype(np.int64), 0, side - 1)
-    i1 = np.clip(((bmax - lo) / cell).astype(np.int64), 0, side - 1)
-    cid, gid, ixyz = _bin_gaussians(i0, i1, side, side)
-    cid = cid[_tight_mask(ic6, mean, gid, ixyz, lo, cell)]
-    counts = np.bincount(cid, minlength=side ** 3)
-    gend = np.cumsum(counts)
-    gfirst = gend - counts
-    span = np.where(counts > 0, (gend - 1) // H - gfirst // H + 1, 0)
-    return side, int(span.max())
+def _grid_work(g):
+    """Grid-engine pair evaluations per ray at the built grid."""
+    from gvr.accel.grid import pass_work
+    return pass_work(g.side[0], g.s_cap)
 
 
-@pytest.mark.parametrize("name,min_n", [("5000_random", 2000),
-                                        ("10k_random", 2000),
-                                        ("20k_bias", 2000)])
-def test_big_fixtures_are_grid_eligible(name, min_n):
-    """Round-2 regression: 5000_random was refused by S_CAP_MAX (the old
-    AABB-range insertion overcounted fat supports 1.9-2.9x) and fell back
-    to the dense engine.  With tight ellipsoid-box insertion all three big
-    reference fixtures must stay grid-eligible — their densest cell's
-    solve-view span must fit the solve kernel's VMEM scratch bound.
-
-    Uses choose_side + build stats only (no render): the full engine
-    selection path is engine_for -> grid_for -> s_cap <= S_CAP_MAX."""
-    import os
-    from gvr_tpu.scene.scene import load_gmm
-    from gvr_tpu.accel.grid import S_CAP_MAX
-    path = f"/root/reference/scenes/gaussians/{name}.txt"
-    if not os.path.exists(path):
-        pytest.skip("reference scenes unavailable")
-    gmm = load_gmm(path).medium
-    assert gmm.n >= min_n  # below GRID_MIN_N the engine stays dense anyway
-    side, span_max = _exact_span_max(gmm)
-    assert span_max <= S_CAP_MAX, (name, side, span_max)
+@pytest.mark.parametrize("name,n,bias", [("5000_random", 5000, False),
+                                         ("10k_random", 10_000, False),
+                                         ("20k_bias", 20_000, True)])
+def test_big_fixtures_are_grid_eligible(name, n, bias):
+    """The reference's big fixture series (make_random.py /
+    make_nonuniform_random.py distributions, regenerated here) must build
+    a grid that covers every Gaussian and on which the grid engine does
+    less pair work per ray than the dense engine's N * (iterations + 3)
+    sweeps — otherwise engine='auto' would pick a slower engine."""
+    gmm = parse_gmm(random_gaussian_scene(n, seed=12,
+                                          bias_low_y=bias)).medium
+    g = build_grid(gmm)
+    counts = np.asarray(g.cell_gcnt)
+    assert counts.sum() == g.n_entries >= n, name
+    tab = np.asarray(g.table).reshape(-1, 16)
+    assert (tab[:, 12] > 0).sum() == g.n_entries
+    work = _grid_work(g)
+    assert work < n * (6 + 3), (name, g.side, work)
 
 
 def test_40k_scene_is_grid_eligible_and_builds():
     """Scale beyond the reference's largest checked-in fixture: its
     40k_random.txt is a lost blob (.MISSING_LARGE_BLOBS, SURVEY §4.5), so
     regenerate the same distribution (tests/make_random.py defaults) at
-    40k Gaussians and require (a) the cost model keeps the scene
-    grid-eligible and (b) the grid actually builds with a consistent
-    entry count — the framework's scaling story doesn't stop at 20k."""
-    from gvr_tpu.accel.grid import S_CAP_MAX
+    40k Gaussians and require (a) the side choice keeps the grid cheaper
+    than the dense engine in pair work and (b) the grid actually builds
+    with a consistent entry count — the framework's scaling story doesn't
+    stop at 20k."""
     gmm = parse_gmm(random_gaussian_scene(40_000, seed=12)).medium
     assert gmm.n == 40_000
-    side, span_max = _exact_span_max(gmm)
-    assert span_max <= S_CAP_MAX, (side, span_max)
-
     g = build_grid(gmm)
     counts = np.asarray(g.cell_gcnt)
     assert counts.sum() == g.n_entries
     assert counts.sum() > 40_000      # multi-cell supports insert >n rows
     assert counts.max() <= g.s_cap * H
+    work = _grid_work(g)
+    assert work < 40_000 * (6 + 3), (g.side, work)
+
+
+@pytest.mark.parametrize("n,diameter,engine", [
+    (50, (0.01, 0.035), "dense"),      # too few Gaussians for a grid to pay
+    (250, (0.01, 0.035), "grid"),      # tiny supports: cells cull most pairs
+    (250, (0.1, 0.4), "dense"),        # fat supports: cells hold most of N
+])
+def test_auto_engine_follows_pair_work(n, diameter, engine):
+    """engine='auto' compares the dense engine's pair evaluations per ray
+    with GRID_PAIR_COST times the grid's (the crossovers measured on the
+    card), so the choice follows the supports as well as N."""
+    from gvr.integrators.multiscatter import engine_for
+    gmm = parse_gmm(random_gaussian_scene(n, seed=0,
+                                          diameter=diameter)).medium
+    assert engine_for(RenderConfig(), gmm)[0] == engine
+    assert engine_for(RenderConfig(engine="dense"), gmm)[0] == "dense"
+    assert engine_for(RenderConfig(engine="grid"), gmm)[0] == "grid"

@@ -11,17 +11,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gvr_tpu.scene.scene import parse_gmm, parse_smm, Scene
-from gvr_tpu.scene.gaussians import GaussianMixture
-from gvr_tpu.cameras import PinholeCamera, OrthographicCamera
-from gvr_tpu.config import RenderConfig, Solver
-from gvr_tpu.integrators.test_hit import render_hit_mask
-from gvr_tpu.integrators.raymarch import (render_raymarch_gaussians,
+from gvr.scene.scene import parse_gmm, parse_smm, Scene
+from gvr.scene.gaussians import GaussianMixture
+from gvr.cameras import PinholeCamera, OrthographicCamera
+from gvr.config import RenderConfig, Solver
+from gvr.integrators.test_hit import render_hit_mask
+from gvr.integrators.raymarch import (render_raymarch_gaussians,
                                           render_raymarch_spheres)
-from gvr_tpu.integrators.multiscatter import render_multiscatter
-from gvr_tpu.integrators.freeflight import render_single_scatter
-from gvr_tpu.ops.transmittance import transmittance_up_to
-from gvr_tpu.cameras import pixel_center_uv
+from gvr.integrators.multiscatter import render_multiscatter
+from gvr.integrators.freeflight import render_single_scatter
+from gvr.ops.transmittance import transmittance_up_to
+from gvr.cameras import pixel_center_uv
 
 ABSORB_SCENE = "g 0 1 0  0.08 0.01 0  0.06 0 0.1  2.0 0.0\n"   # albedo 0
 SCATTER_SCENE = ("l 0 4 0  30 30 30\n"

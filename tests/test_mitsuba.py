@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from gvr_tpu.io.mitsuba import load_mitsuba
-from gvr_tpu.cameras import OrthographicCamera
+from gvr.io.mitsuba import load_mitsuba
+from gvr.cameras import OrthographicCamera
 
-XML = "/root/reference/tests/env_one_sphere_test_ortho.xml"
+XML = "tests/env_one_sphere_test_ortho.xml"
 
 
-def test_load_reference_xml():
-    scene, camera, w, h = load_mitsuba(XML)
+def test_load_reference_xml(ref_paths):
+    scene, camera, w, h = load_mitsuba(f"{ref_paths['root']}/{XML}")
     assert (w, h) == (512, 512)
     assert isinstance(camera, OrthographicCamera)
     np.testing.assert_allclose(np.asarray(camera.position), [0, 1, 6])
@@ -32,8 +32,8 @@ def test_load_reference_xml():
 def test_xml_matches_text_fixture(ref_paths):
     """The XML scene and scenes/spheres/1_spheres.txt describe the same
     physical setup."""
-    from gvr_tpu.scene.scene import load_smm
-    scene_xml, *_ = load_mitsuba(XML)
+    from gvr.scene.scene import load_smm
+    scene_xml, *_ = load_mitsuba(f"{ref_paths['root']}/{XML}")
     scene_txt = load_smm(f"{ref_paths['spheres']}/1_spheres.txt")
     np.testing.assert_allclose(np.asarray(scene_xml.medium.center),
                                np.asarray(scene_txt.medium.center))

@@ -5,13 +5,13 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from gvr_tpu.scene.scene import parse_gmm, parse_smm
-from gvr_tpu.cameras import PinholeCamera, OrthographicCamera
-from gvr_tpu.config import RenderConfig
-from gvr_tpu.integrators.raymarch import (
+from gvr.scene.scene import parse_gmm, parse_smm
+from gvr.cameras import PinholeCamera, OrthographicCamera
+from gvr.config import RenderConfig
+from gvr.integrators.raymarch import (
     render_pure_raymarch, render_raymarch_gaussians, march_transmittance)
-from gvr_tpu.ops.transmittance import transmittance_up_to
-from gvr_tpu.ops.quadratics import (intersect_gaussians,
+from gvr.ops.transmittance import transmittance_up_to
+from gvr.ops.quadratics import (intersect_gaussians,
                                     intersect_gaussians_whitening)
 
 from test_gaussian_math import make_pair, random_rays

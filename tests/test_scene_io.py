@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from gvr_tpu.scene.scene import load_scene, load_gmm, load_smm, parse_gmm
-from gvr_tpu.io.ppm import read_ppm, write_ppm, decode_ppm, quantize
-from gvr_tpu.io.gif import write_gif
+from gvr.scene.scene import load_scene, load_gmm, load_smm, parse_gmm
+from gvr.io.ppm import read_ppm, write_ppm, decode_ppm, quantize
+from gvr.io.gif import write_gif
 
 
 EXPECTED_COUNTS = {
@@ -74,7 +74,7 @@ def test_parse_keeps_rows_with_trailing_junk(tmp_path):
     sc = parse_gmm(text)
     assert sc.medium.n == 2
     # and the native parser (if built) agrees on the same file
-    from gvr_tpu.native.loader import lib
+    from gvr.native.loader import lib
     nat = lib()
     if nat is not None:
         p = tmp_path / "junk.txt"

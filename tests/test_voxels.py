@@ -1,7 +1,7 @@
 """Voxel-grid medium: the reference's VOXELS VolumeType, made real.
 
 The reference declares VolumeType::VOXELS and load_VDB but implements
-neither (scene.h:21-22, 122, 144-145).  gvr_tpu renders dense voxel grids
+neither (scene.h:21-22, 122, 144-145).  gvr renders dense voxel grids
 through the medium-agnostic PureRayMarching path (integrator.h:100-267),
 so these tests pin (1) the trilinear sampler, (2) closed-form
 transmittance on a constant grid, (3) the .npz loader round-trip, and
@@ -16,14 +16,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gvr_tpu.cameras import PinholeCamera
-from gvr_tpu.config import RenderConfig
-from gvr_tpu.integrators.raymarch import (
+from gvr.cameras import PinholeCamera
+from gvr.config import RenderConfig
+from gvr.integrators.raymarch import (
     march_transmittance, render_pure_raymarch)
-from gvr_tpu.scene.scene import load_gmm, load_scene
-from gvr_tpu.scene.voxels import VoxelGrid, load_voxels
+from gvr.scene.scene import load_gmm, load_scene
+from gvr.scene.voxels import VoxelGrid, load_voxels
 
-SCENES_G = "/root/reference/scenes/gaussians"
 
 
 def test_trilinear_exact_at_cell_centers():
@@ -85,12 +84,12 @@ def test_npz_loader_roundtrip(tmp_path):
     assert isinstance(sc2.medium, VoxelGrid)
 
 
-def test_baked_gmm_renders_like_gmm():
+def test_baked_gmm_renders_like_gmm(scene_files):
     """Cross-representation validation: bake 2g_altered to a voxel grid and
     render both through the SAME medium-agnostic marcher.  As the bake
     resolution rises the images converge; at 64^3 the remaining gap is
     interpolation bias only."""
-    sc = load_gmm(f"{SCENES_G}/2g_altered.txt")
+    sc = load_gmm(scene_files["2g_altered.txt"])
     vg = VoxelGrid.from_gaussians(sc.medium, res=64)
     scv = sc.with_medium(vg)
     cam = PinholeCamera.create([0, 1, 6], [0, 1, 0], 0.25 * math.pi)
@@ -104,9 +103,9 @@ def test_baked_gmm_renders_like_gmm():
 
 
 @pytest.mark.parametrize("res", [24, 48])
-def test_bake_convergence(res):
+def test_bake_convergence(res, scene_files):
     """Baking error falls with resolution (sigma_t field midline probe)."""
-    sc = load_gmm(f"{SCENES_G}/2g_altered.txt")
+    sc = load_gmm(scene_files["2g_altered.txt"])
     vg = VoxelGrid.from_gaussians(sc.medium, res=res)
     pts = jnp.stack([jnp.zeros(64), jnp.linspace(0.2, 1.8, 64),
                      jnp.zeros(64)], axis=-1)
